@@ -1,6 +1,6 @@
-"""allpathslg_tpu — a TPU-native short-read de novo assembler.
+"""allpathslg_tpu — a JAX short-read de novo assembler.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
+A from-scratch JAX/XLA re-architecture of the capabilities of
 ALLPATHS-LG (genome-vendor/allpathslg, Broad Institute): quality-aware k-mer
 error correction, fragment-pair filling, a K=96 unipath-graph assembly
 substrate, localized assembly and merging, jump-library scaffolding with
@@ -16,7 +16,7 @@ Layer map (mirrors reference layers in SURVEY.md §1):
   dtypes/    packed 2-bit base tensors, ragged batches     (ref: src/feudal/)
   io/        FASTQ/FASTA/EFASTA/AGP + chunked array store  (ref: src/util/, src/efasta/)
   ops/       device kernel bedrock: sort, segmented ops,
-             searchsorted join, banded-DP Pallas kernel    (ref: src/ParallelVecUtilities.h,
+             searchsorted join, batched banded DP          (ref: src/ParallelVecUtilities.h,
                                                             src/pairwise_aligners/)
   kmer/      bit-packed kmer math, counting, spectra       (ref: src/kmers/)
   ec/        read error correction family                  (ref: src/paths/FindErrors.cc)

@@ -1,16 +1,18 @@
-"""Gap-free exhaustive alignment as one-hot MXU convolution.
+"""Gap-free exhaustive alignment as one one-hot convolution.
 
 Behavior contract (ref: src/lookup/PerfectLookup.cc, ImperfectLookup.cc —
 SURVEY.md §2.2): place short reads on a target allowing substitutions only,
 exhaustively over every offset and both strands; PerfectLookup keeps exact
 matches, ImperfectLookup the best placement with bounded mismatches.
 
-TPU-native design: match-counting at every offset is a correlation of
+Device design: match-counting at every offset is a correlation of
 one-hot encodings — Σ_j 1[target[p+j] == read[j]] — i.e. a conv with the
-read as filter. One `lax.conv` puts the whole scan on the MXU: reads are
-output channels, base identity is the contracted channel dim, offsets are
-the spatial dim. A [G]-base target vs [N, L] reads costs G·N·L·4 MACs —
-bf16 on the systolic array, no hashing, no seeds, no branches.
+read as filter. One `lax.conv` does the whole scan: reads are output
+channels, base identity is the contracted channel dim, offsets are the
+spatial dim. A [G]-base target vs [N, L] reads costs G·N·L·4 MACs — bf16
+one-hot operands with float32 accumulation (`preferred_element_type`), so
+the counts are exact integers on any backend; no hashing, no seeds, no
+branches. (The module name is historical.)
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ assisting genome proposes contig order/orientation and gap sequence; read
 evidence must confirm anything spliced into the assembly (the relative is
 similar, not identical — assistance is a prior, never ground truth).
 
-TPU shape: contig placement on the assisting genome is the same kmer-anchor
+Device shape: contig placement on the assisting genome is the same kmer-anchor
 colinearity join used by eval/accuracy.py (sorted genome kmer table +
 batched searchsorted, device); junction refinement is the banded-DP kernel;
 patch validation is a kmer-membership join against the read kmer table.
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from allpathslg_tpu.eval.accuracy import _genome_kmer_table
 from allpathslg_tpu.kmer import bits, kmerize
 from allpathslg_tpu.ops import banded
+from allpathslg_tpu.utils.jitsafe import call_buffer_safe
 from allpathslg_tpu.ops import join as ops_join
 from allpathslg_tpu.scaffold.superb import Superb
 
@@ -47,9 +48,7 @@ class AssistConfig:
     min_patch_count: int = 2     # read kmer count considered support
     max_patch_len: int = 5_000
     flank: int = 100             # junction refinement window
-    band: int = 16  # full search window; band>15 routes to the general
-    # Pallas kernel (banded_align_auto) rather than narrowing the window
-    # to qualify for the bit-parallel kernel (ADVICE r2)
+    band: int = 16               # full junction search window
     max_flank_cost_frac: float = 0.25  # DP cost vs flank len to trust junction
 
 
@@ -177,7 +176,7 @@ def _refine_end(oriented: np.ndarray, genome: np.ndarray, ref_end: int,
     q, t = oriented[-F:], genome[a:b]
     if len(t) < F // 2:
         return None
-    cost, tend = banded.banded_align_auto(
+    cost, tend = call_buffer_safe(banded.banded_align,
         jnp.asarray(q[None, :]), jnp.asarray([len(q)], jnp.int32),
         jnp.asarray(t[None, :]), jnp.asarray([len(t)], jnp.int32),
         jnp.asarray([ref_end - F - a], jnp.int32), band=cfg.band)
@@ -203,7 +202,7 @@ def _refine_end_seq(q: np.ndarray, t: np.ndarray, off: int,
                     cfg: AssistConfig) -> Optional[int]:
     if len(t) < len(q) // 2 or len(q) == 0:
         return None
-    cost, tend = banded.banded_align_auto(
+    cost, tend = call_buffer_safe(banded.banded_align,
         jnp.asarray(q[None, :]), jnp.asarray([len(q)], jnp.int32),
         jnp.asarray(t[None, :]), jnp.asarray([len(t)], jnp.int32),
         jnp.asarray([off], jnp.int32), band=cfg.band)

@@ -7,7 +7,7 @@ distribution, merge into one double-quality "filled" read, and pass
 unfillable pairs through unchanged. Filled reads are what the K=96 pather
 consumes — raw 100bp reads only cover each 96-mer ~(L-K+1)/L as often.
 
-TPU shape: all candidate insert sizes are scored at once as shifted
+Device shape: all candidate insert sizes are scored at once as shifted
 elementwise comparisons (one [N, n_offsets, L] compare), best and runner-up
 offsets picked with top-k semantics, merged bases/quals built by gather.
 """

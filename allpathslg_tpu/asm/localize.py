@@ -7,7 +7,7 @@ walk fragment inserts across repeats, pop bubbles) and glues the local
 graphs back together. The *effect* is that read and insert evidence resolves
 graph junctions that pure K-mer adjacency cannot.
 
-TPU-first recast (SURVEY.md §7.2 step 7): instead of per-seed process
+Device-first recast (SURVEY.md §7.2 step 7): instead of per-seed process
 fan-out (a CPU-era memory workaround), run the same evidence globally and
 batched:
 

@@ -8,7 +8,7 @@ are reconciled into a consensus patch which must agree with the insert-size
 expectation; accepted patches close the gap. Final base quality comes from
 the subsequent short-read polish pass.
 
-TPU shape: flank anchoring is a 12-mer seed vote with coarse diagonal bins
+Device shape: flank anchoring is a 12-mer seed vote with coarse diagonal bins
 (exact kmers survive ~15% error often enough); segment reconciliation picks
 the medoid under batched banded-DP cost (the band absorbing indel drift);
 acceptance = both flank re-alignments of the medoid within an error budget.
@@ -23,6 +23,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from allpathslg_tpu.ops import banded
+from allpathslg_tpu.utils.jitsafe import call_buffer_safe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,9 +142,9 @@ def consensus_patch(segs: List[np.ndarray], cfg: LongReadConfig
             t[k, : len(keep[j])] = keep[j]
             ql[k], tl[k] = len(keep[i]), len(keep[j])
             k += 1
-    cost, _ = banded.banded_align_auto(jnp.asarray(q), jnp.asarray(ql),
-                                  jnp.asarray(t), jnp.asarray(tl),
-                                  jnp.asarray(off), band=band)
+    cost, _ = call_buffer_safe(banded.banded_align, jnp.asarray(q),
+                               jnp.asarray(ql), jnp.asarray(t),
+                               jnp.asarray(tl), jnp.asarray(off), band=band)
     c = np.asarray(cost)[: n * n].reshape(n, n).astype(np.float64)
     c[c >= (1 << 20)] = np.nan
     total = np.nansum(c, axis=1)

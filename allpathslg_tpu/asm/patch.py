@@ -28,6 +28,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from allpathslg_tpu.ops import banded
+from allpathslg_tpu.utils.jitsafe import call_buffer_safe
 from allpathslg_tpu.scaffold.superb import Superb
 
 
@@ -168,7 +169,7 @@ class _DPBatch:
                 ql[i] = len(qi)
                 tl[i] = len(ti)
                 off[i] = oi
-            cost, tend = banded.banded_align_auto(
+            cost, tend = call_buffer_safe(banded.banded_align,
                 jnp.asarray(q), jnp.asarray(ql), jnp.asarray(t),
                 jnp.asarray(tl), jnp.asarray(off), band=band)
             cost = np.asarray(cost)

@@ -169,6 +169,7 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
     (contig, pos, old_len, new_len) for ambiguity-table remapping."""
     from allpathslg_tpu.asm.patch import _AlignIndex, _rc as _rcseq
     from allpathslg_tpu.ops import banded
+    from allpathslg_tpu.utils.jitsafe import call_buffer_safe
 
     total = int(offsets[-1])
     n_contigs = len(offsets) - 1
@@ -247,7 +248,7 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
             ta[i, : len(probs_t[i])] = probs_t[i]
             ql[i] = len(probs_q[i])
             tl[i] = len(probs_t[i])
-        cost, _ = banded.banded_align_auto(
+        cost, _ = call_buffer_safe(banded.banded_align,
             jnp.asarray(qa), jnp.asarray(ql), jnp.asarray(ta),
             jnp.asarray(tl), jnp.zeros(B, np.int32), band=cfg.indel_band)
         cost = np.asarray(cost)

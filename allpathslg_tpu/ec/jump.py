@@ -7,7 +7,7 @@ the trusted kmer set of the corrected fragment reads, truncate at the first
 untrusted window (the junction), flip outies to innies, and drop duplicate
 and unalignable pairs (jump libraries have high molecular-duplicate rates).
 
-TPU shape: the prefix alignment is the same searchsorted membership scan as
+Device shape: the prefix alignment is the same searchsorted membership scan as
 spectrum EC's window test; truncation reuses the clean_reads trim kernel.
 """
 
@@ -54,8 +54,8 @@ def error_correct_jumps(codes, quals, lengths, pairs, table,
 
     The device legs (prefix truncation + flip) stream in fixed-size
     batches: a single whole-library program at genome scale (2M+ reads)
-    held multi-GB intermediates and crashed the TPU worker (r4); batches
-    also upload 2-bit packed over the ~MB/s link."""
+    held multi-GB intermediates and crashed the device worker; batches
+    also upload 2-bit packed, a quarter of the host->device bytes."""
     import numpy as _np
     from allpathslg_tpu.dtypes import packed as _pk
 

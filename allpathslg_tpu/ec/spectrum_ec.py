@@ -13,7 +13,7 @@ SURVEY.md §2.5 row 5): after correction, trim reads back to their longest
 strong prefix and drop reads with residual weak cores, keeping row indices
 stable so pairing survives.
 
-TPU shape: membership tests are searchsorted joins against the sorted strong
+Device shape: membership tests are searchsorted joins against the sorted strong
 table; candidate re-tests substitute bases into packed fwd windows with
 dynamic bit ops and re-canonicalize — [B, MAXFIX, 3, K] lookups, all batched.
 """

@@ -5,7 +5,7 @@ UnipathEval.cc — SURVEY.md §2.5 row 25, EVALUATION=FULL): align the
 assembly back to a known reference and report base accuracy, genome
 coverage, and misassembly counts.
 
-TPU-shaped method: kmer-anchor colinearity. Sample anchors every `stride`
+Device method: kmer-anchor colinearity. Sample anchors every `stride`
 bases of each contig, place each uniquely on the reference via the sorted
 genome kmer table (searchsorted join), then scan anchor chains: colinear
 runs (consistent diagonal, orientation) validate spans; diagonal breaks are

@@ -2,7 +2,7 @@
 
 Behavior contract (ref: src/graph/Digraph.{h,cc} `digraph`/`digraphE<E>` —
 SURVEY.md §2.1): the substrate of unipath graphs, link graphs and scaffolds.
-TPU-native form: edges as (src, dst, payload-index) arrays; connected
+Device form: edges as (src, dst, payload-index) arrays; connected
 components via iterated min-label propagation (pointer jumping) in jnp;
 small-graph conveniences on host.
 """

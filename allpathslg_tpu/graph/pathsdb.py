@@ -8,7 +8,7 @@ coordinate system is the *unipath* directly: a read path is the sequence of
 oriented unipaths the read traverses, with entry/exit window offsets; the
 pathsdb is the CSR inverse (unipath → placements of reads on it).
 
-TPU shape: the per-window join (canonical K-mer → unipath/pos/orient) is a
+Device shape: the per-window join (canonical K-mer → unipath/pos/orient) is a
 batched searchsorted on device; run compression to ragged paths is one
 vectorized numpy pass on host (stage boundary, data-dependent sizes).
 """

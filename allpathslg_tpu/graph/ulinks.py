@@ -6,7 +6,7 @@ oriented unipaths carry (separation ± deviation, #pairs), estimated from
 read pairs whose two reads place on different unipaths; CN=1 unipaths form
 the seed/neighborhood backbone for localization and jump scaffolding.
 
-TPU shape: placements come from the device pathing join (graph/pathsdb);
+Device shape: placements come from the device pathing join (graph/pathsdb);
 link accumulation is a pack-sort-unique aggregation (sparse linear algebra
 on the unipath graph). Orientation flags use the UniGraph flip convention
 (True = traversed reverse-complemented).

@@ -4,7 +4,7 @@ The reference stores k-mers as 2-bit-packed fixed-K types in 1..4 64-bit words
 (ref: src/kmers/KmerRecord.h, src/kmers/naif_kmer/Kmers.h — Kmer29/Kmer60/
 Kmer124/Kmer248) with canonical form = min(fwd, reverse-complement).
 
-TPU-native representation chosen here: a k-mer is ``W = ceil(K/16)`` uint32
+Device representation chosen here: a k-mer is ``W = ceil(K/16)`` uint32
 words, **big-endian base order, left-aligned**: the first base of the k-mer
 occupies the top 2 bits of word 0; the last (32*W - 2*K) bits are zero.
 This makes lexicographic uint32 word comparison == lexicographic base

@@ -7,9 +7,9 @@ alignment cost of the stacked reads against it; consensus construction
 proposes local variants (substitutions, 1–2 bp indels) at disagreeing
 columns and keeps whichever candidate minimizes the stack score.
 
-TPU shape: scoring is ONE batched banded-DP dispatch per refinement round —
+Device shape: scoring is ONE batched banded-DP dispatch per refinement round —
 all (read, variant-window) problems padded into a single [B, L] program
-(ops/banded.banded_align_auto → the Pallas kernel on TPU). Column votes are
+(ops/banded.banded_align). Column votes are
 a vectorized pileup at the reads' modal offsets; only variant windows pay
 DP.
 """
@@ -23,6 +23,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from allpathslg_tpu.ops import banded
+from allpathslg_tpu.utils.jitsafe import call_buffer_safe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +69,7 @@ def score_stack(consensus: np.ndarray, reads: Sequence[np.ndarray],
     t = np.asarray(consensus, np.uint8)[None, :].repeat(B, axis=0)
     tl = np.full(B, len(consensus), np.int32)
     off = np.asarray(offsets, np.int32)
-    cost, _ = banded.banded_align_auto(
+    cost, _ = call_buffer_safe(banded.banded_align,
         jnp.asarray(q), jnp.asarray(ql), jnp.asarray(t), jnp.asarray(tl),
         off, band=band)
     return int(np.asarray(cost).sum())
@@ -183,7 +184,7 @@ def refine_consensus(seed: np.ndarray, reads: Sequence[np.ndarray],
             ta[i, : len(probs_t[i])] = probs_t[i]
             ql[i] = len(probs_q[i])
             tl[i] = len(probs_t[i])
-        cost, _ = banded.banded_align_auto(
+        cost, _ = call_buffer_safe(banded.banded_align,
             jnp.asarray(qa), jnp.asarray(ql), jnp.asarray(ta),
             jnp.asarray(tl), jnp.zeros(B, np.int32), band=cfg.band)
         cost = np.asarray(cost)

@@ -6,7 +6,7 @@ reference computes, for every read, the set of "friends" — reads sharing
 enough k-mer content to plausibly come from the same genomic locus — and
 uses friend stacks for consensus correction of long/jumbo reads.
 
-TPU-native design: no per-read hash maps. All (canonical kmer, read, pos,
+Device design: no per-read hash maps. All (canonical kmer, read, pos,
 rc) tuples are flattened and sorted by kmer on device; each equal-kmer run
 pairs the run's reads against the run's *first* read (the reference caps
 stack growth the same way: friendship is evaluated against a pivot, not all

@@ -8,7 +8,7 @@ corrected reads through it as ReadPaths, and (4) simplifying the graph using
 that path support (low-support deletion, pull-aparts), emitting a final
 SupportedHyperBasevector-equivalent and contigs.
 
-TPU-native shape: friend finding + kmer counting + unipath condensation +
+Device shape: friend finding + kmer counting + unipath condensation +
 read pathing are device sort/join programs; the support-driven cleanup runs
 on the condensed (small) graph host-side — same split as the rest of the
 framework (SURVEY.md §7.1).

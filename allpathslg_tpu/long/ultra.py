@@ -10,12 +10,12 @@ at 15% error fixed-offset stacking (long/friends.correct_with_friends) is
 useless because indels drift the frame by ±7% of the distance from any
 anchor.
 
-TPU-native shape: alignment problems are WINDOWED — every (read, friend)
+Device shape: alignment problems are WINDOWED — every (read, friend)
 overlap is cut into fixed-size fragment-vs-window problems anchored at a
 shared k-mer hit inside the window, so the residual drift within a problem
 is bounded by band. All problems across all reads are solved in one batched
 banded-DP sweep (vectorized anti-row DP + vectorized traceback, host numpy;
-the same formulation the Pallas kernel uses on device for scoring). Votes
+the same formulation ops/banded uses on device for scoring). Votes
 scatter into global per-read pileup arrays; the consensus emit is a single
 vectorized pass per read.
 

@@ -1,9 +1,10 @@
 """Build + load the native host extensions (C++ via ctypes).
 
-No pybind11 in this environment; the C ABI + ctypes keeps the toolchain to
-a bare `g++ -O3 -shared -fPIC`. Libraries build lazily into the package
-directory on first use and are cached; absence of a compiler degrades to
-the pure-Python fallbacks.
+The C ABI + ctypes keeps the toolchain to a bare `g++ -O3 -shared -fPIC`.
+Libraries build from the .cpp sources lazily into the package directory on
+first use (they are not committed: `-march=native` ties them to the host
+that built them) and are cached; absence of a compiler degrades to the
+pure-Python fallbacks.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -24,15 +26,22 @@ def _build(name: str) -> Optional[str]:
     so = os.path.join(_DIR, name + ".so")
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
         return so
+    # a per-call temp name: concurrent builders (test workers) must not
+    # write into each other's output before the atomic rename
+    fd, tmp = tempfile.mkstemp(suffix=".tmp", prefix=name + ".", dir=_DIR)
+    os.close(fd)
     try:
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC", src, "-o",
-             so + ".tmp"],
+             tmp],
             check=True, capture_output=True)
-        os.replace(so + ".tmp", so)
+        os.replace(tmp, so)
         return so
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load(name: str) -> Optional[ctypes.CDLL]:

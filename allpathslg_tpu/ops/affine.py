@@ -35,7 +35,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-BIG = jnp.int32(1 << 20)
+BIG = np.int32(1 << 20)
 
 
 @functools.partial(jax.jit, static_argnames=("band", "sub_cost", "gap_open",

@@ -1,11 +1,9 @@
 """Bucketed k-mer grouping: group equal keys without one global flat sort.
 
-Motivation (BASELINE.md ">= 10x per chip" k-mer counting target): XLA's
-flat `lax.sort` of N=2^24 2-word keys is HBM-pass bound — every bitonic
-level streams the whole array through HBM. Counting does not need a total
-order, only all copies of each key adjacent. This module restructures the
-problem so every sort XLA sees is a BATCHED ROW SORT whose row fits VMEM
-(fused on-chip, compute-bound):
+Motivation: a flat `lax.sort` of N=2^24 2-word keys streams the whole
+array through device memory at every merge level. Counting does not need a
+total order, only all copies of each key adjacent. This module restructures
+the problem so every sort XLA sees is a BATCHED ROW SORT of short rows:
 
   1. reshape the flat keys to [T, R] tiles; sort each row (dimension=1)
   2. pick bucket edges from a per-tile strided sample (quantile splitters
@@ -28,7 +26,7 @@ overflow. With sampled quantile edges the default slack is generous.
 
 (ref: the hash-block parcel decomposition of naif_kmerize,
 src/kmers/naif_kmer/NaifKmerizer.cc — the same two-level group-then-count
-shape, re-cast for VMEM residency instead of L2 cache.)
+shape, re-cast for on-chip residency instead of L2 cache.)
 """
 
 from __future__ import annotations
@@ -41,7 +39,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-SENT = jnp.uint32(0xFFFFFFFF)
+SENT = np.uint32(0xFFFFFFFF)
 
 
 @functools.partial(jax.jit, static_argnames=("tile_rows", "n_buckets",
@@ -53,8 +51,7 @@ def group_keys(words: Sequence[jnp.ndarray], tile_rows: int,
     Args:
       words: W uint32 arrays, flat [N] (N % tile_rows == 0 required;
         pad with the all-ones sentinel first).
-      tile_rows: R, elements per tile row (a power of two; R*4B per word
-        should fit VMEM comfortably, e.g. 2^17).
+      tile_rows: R, elements per tile row (a power of two; e.g. 2^17).
       n_buckets: B bucket count.
       slots: S slab slots per (tile, bucket).
 

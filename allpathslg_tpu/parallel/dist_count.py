@@ -1,6 +1,6 @@
 """Hash-sharded distributed k-mer counting — the central multi-chip kernel.
 
-TPU-native replacement for the reference's single-host hash-partitioned
+Device replacement for the reference's single-host hash-partitioned
 parcels (ref: src/kmers/kmer_parcels/KmerParcelsBuilder.cc,
 src/kmers/naif_kmer/NaifKmerizer.cc multi-pass hash blocks): read batches are
 data-parallel across the mesh axis; every device kmerizes its shard, routes
@@ -20,6 +20,7 @@ from typing import List, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -29,7 +30,7 @@ from allpathslg_tpu.ops import sort as ops_sort
 from allpathslg_tpu.ops import segmented
 from allpathslg_tpu.parallel.mesh import AXIS
 
-SENT = jnp.uint32(0xFFFFFFFF)
+SENT = np.uint32(0xFFFFFFFF)
 
 
 def _route_local(flat_words, vmask, n_shards: int, capacity: int,
@@ -182,13 +183,13 @@ def count_reads_streaming_dist(mesh: Mesh, codes, K: int, quals=None,
 
     parts = []
     recv_cap = nsh * capacity     # rows owned per shard (padded)
-    # ICI accounting (docs/scaling.md): the all_to_all moves the FIXED
-    # routing buffers — per batch, per shard: n_shards*capacity rows ×
+    # interconnect byte accounting (docs/scaling.md): the all_to_all
+    # moves the FIXED routing buffers — per batch, per shard: n_shards*capacity rows ×
     # (key words + optional qual) × 4 B, of which (n_shards-1)/n_shards
     # crosses links. Deterministic by construction (static shapes), so
     # the byte model below IS the measurement.
     n_words_total = bits.n_words(K) + (1 if with_quals else 0)
-    ici_bytes_per_batch_per_shard = (
+    link_bytes_per_batch_per_shard = (
         nsh * capacity * n_words_total * 4 * (nsh - 1) // nsh)
     for s in range(0, n, bs):
         e = min(s + bs, n)
@@ -220,8 +221,8 @@ def count_reads_streaming_dist(mesh: Mesh, codes, K: int, quals=None,
                 cnp[lo:lo + m],
                 qnp[lo:lo + m] if with_quals else None))
     n_batches = (n + bs - 1) // bs
-    count_reads_streaming_dist.last_ici_bytes = (
-        ici_bytes_per_batch_per_shard * n_batches)
+    count_reads_streaming_dist.last_link_bytes = (
+        link_bytes_per_batch_per_shard * n_batches)
     if not parts:
         W = bits.n_words(K)
         empty = kcount.CountedKmers(
@@ -299,7 +300,7 @@ def count_resident_streaming_dist(mesh: Mesh, db, K: int,
     parts = []
     recv_cap = nsh * capacity
     n_words_total = bits.n_words(K) + (1 if with_quals else 0)
-    ici_bytes_per_batch_per_shard = (
+    link_bytes_per_batch_per_shard = (
         nsh * capacity * n_words_total * 4 * (nsh - 1) // nsh)
     dummy1 = jnp.zeros((db.batch, 1), jnp.uint32)
     dummy2 = jnp.zeros((db.batch, 1), jnp.uint32)
@@ -329,8 +330,8 @@ def count_resident_streaming_dist(mesh: Mesh, db, K: int,
                 np.stack([w[lo:lo + m] for w in wnp]),
                 cnp[lo:lo + m],
                 qnp[lo:lo + m] if with_quals else None))
-    count_resident_streaming_dist.last_ici_bytes = (
-        ici_bytes_per_batch_per_shard * db.n_batches)
+    count_resident_streaming_dist.last_link_bytes = (
+        link_bytes_per_batch_per_shard * db.n_batches)
     if not parts:
         W = bits.n_words(K)
         empty = kcount.CountedKmers(

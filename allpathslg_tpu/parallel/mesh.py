@@ -19,10 +19,6 @@ AXIS = "x"
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            # single-accelerator host asked for a wider mesh: fall back to
-            # the virtual CPU devices (xla_force_host_platform_device_count)
-            devices = jax.devices("cpu")
         if n_devices is not None:
             if len(devices) < n_devices:
                 raise ValueError(

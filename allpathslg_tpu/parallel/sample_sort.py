@@ -36,7 +36,7 @@ try:
 except ImportError:  # older jax
     from jax.experimental.shard_map import shard_map
 
-SENTINEL = jnp.uint32(0xFFFFFFFF)
+SENTINEL = np.uint32(0xFFFFFFFF)
 AXIS = "x"
 
 

@@ -9,7 +9,7 @@ from contig coordinates into scaffold coordinates, aggregate scaffold-level
 links with the long-jump library's own insert distribution, and join
 scaffolds with the same iterative accept/conflict-break loop.
 
-TPU note: the heavy parts (read alignment, link accumulation) reuse the
+Device note: the heavy parts (read alignment, link accumulation) reuse the
 device alignlet aligner and the vectorized pair_links; this module is pure
 coordinate bookkeeping on the (small) scaffold table.
 """

@@ -17,15 +17,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import numpy as np
-
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 
 def cmd_stats(args):
@@ -284,6 +278,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_align)
 
     args = ap.parse_args(argv)
+    from allpathslg_tpu.utils import compile_cache
+    compile_cache.enable()
     args.fn(args)
     return 0
 

@@ -13,8 +13,8 @@ Scope note: "count_engine" currently routes the single-batch spectrum entry
 point (`kmer.count.spectrum_reads_auto`, used by bench.py and tests); the
 pipeline's production counting paths are the streamed
 `count_reads_streaming` family, which has one engine (flat sort+merge) —
-the bucketed engine has no streaming form (it lost the on-chip measurement,
-README "Results").
+the bucketed engine has no streaming form (ROADMAP C3 decides its fate on
+the GPU).
 
 (ref: the reference hard-codes its analogous choices per build — e.g.
 naif_kmer pass counts sized to L2; here the registry replaces recompiling.)
@@ -31,7 +31,7 @@ _REPO_DEFAULTS_FILE = os.path.join(os.path.dirname(__file__),
 
 DEFAULTS = {
     # k-mer counting/spectrum engine: "flat" = one global lax.sort;
-    # "bucketed" = VMEM row sorts + quantile buckets (ops/bucket_count.py)
+    # "bucketed" = batched row sorts + quantile buckets (ops/bucket_count.py)
     "count_engine": "flat",
 }
 

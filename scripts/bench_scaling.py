@@ -1,15 +1,14 @@
 """Scaling curve for distributed k-mer counting (BASELINE.md measurement
 points: 1 chip / 1 host / >=2 hosts).
 
-Only ONE real TPU chip exists in this environment (see SURVEY.md §0), so
-the multi-device points run on a VIRTUAL CPU mesh
+The points run on a VIRTUAL CPU mesh
 (--xla_force_host_platform_device_count) and a real 2-process
-jax.distributed CPU arrangement — honestly labeled `virtual-cpu`. The
-machinery measured (hash-routed all_to_all + sharded sort/count in
-parallel/dist_count.py) is exactly what would run over ICI on a pod slice;
-the absolute CPU numbers are meaningless, the SCALING RATIOS and the fact
-the collective path executes end-to-end are the point. The real-chip
-absolute rate lives in bench.py / BENCH_r*.json.
+jax.distributed CPU arrangement — labeled `virtual-cpu`. The machinery
+measured (hash-routed all_to_all + sharded sort/count in
+parallel/dist_count.py) is what runs over NVLink on a multi-GPU host; the
+absolute CPU numbers are meaningless, the SCALING RATIOS and the fact the
+collective path executes end-to-end are the point. The device rate is
+measured by bench.py on a GPU.
 
 Usage: python scripts/bench_scaling.py   (prints one JSON line)
 """
@@ -161,9 +160,9 @@ def main():
         "metric": "dist_count_scaling_virtual_cpu",
         "note": "this host has 2 physical cores; 8 virtual devices share "
                 "them, so ratios <1 reflect collective+shard overhead on "
-                "oversubscribed cores, NOT the ICI-mesh behavior. The "
+                "oversubscribed cores, NOT the multi-GPU behavior. The "
                 "points demonstrate the multi-device/multi-process path "
-                "executes end-to-end; real-chip rate is in bench.py.",
+                "executes end-to-end; the device rate is in bench.py.",
         "points": points}))
 
 

@@ -1,7 +1,7 @@
 // Measured CPU baseline for canonical K=24 k-mer counting (VERDICT r2 #2a).
 //
 // Replaces the assumed 150 M kmers/s "optimized CPU socket" divisor in
-// bench.py with a measurement: the same sort-and-count algorithm the TPU
+// bench.py with a measurement: the same sort-and-count algorithm the device
 // path uses (extract canonical 48-bit kmers -> LSD radix sort -> run-length
 // spectrum), implemented the way an optimized CPU counter would (KMC2 /
 // Jellyfish-class: 2-bit packing, rolling canonical extraction, parallel

@@ -1,4 +1,4 @@
-"""Measure TPU scatter/gather primitives at N=2^24 to judge radix-sort feasibility."""
+"""Measure device scatter/gather primitives at N=2^24 to judge radix-sort feasibility."""
 import sys
 import time
 

@@ -1,4 +1,4 @@
-"""Microbench: lax.sort variants on TPU — where does kmer counting time go.
+"""Microbench: lax.sort variants on the device — where does kmer counting time go.
 
 Run: timeout 600 python scripts/microbench_sort.py
 """

@@ -1,5 +1,5 @@
 """Microbench: is a BATCHED row sort (lax.sort along axis 1) materially
-faster per element than one flat sort? If rows fit VMEM and XLA fuses the
+faster per element than one flat sort? If rows fit on-chip memory and XLA fuses the
 whole per-row network on-chip, counting can be restructured as
 bucket-partition + row sorts (columnsort-style), beating the HBM-pass-bound
 flat sort.

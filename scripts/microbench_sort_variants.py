@@ -1,4 +1,4 @@
-"""Microbench lax.sort key/payload variants on the TPU at N=2^24.
+"""Microbench lax.sort key/payload variants on the device at N=2^24.
 
 Question: does dropping from 2 compare-keys to 1 key (+payload) buy enough
 to justify a hash-sort + odd-even fixup counting path?

@@ -1,6 +1,6 @@
 """Profile the aligned read-pairs/s path (VERDICT r3 Next #4).
 
-Decomposes the 805 ms/batch bench loop (bench.py lookup align) into its
+Decomposes the bench loop (bench.py lookup align) into its
 stages, each timed as its own jitted sustained loop on the device:
 
   A. kmerize+seed-expand   (_candidates)

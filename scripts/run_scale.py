@@ -44,6 +44,7 @@ def main(argv=None):
     from allpathslg_tpu.pipeline.config import AssemblyConfig
     from allpathslg_tpu.pipeline.rundir import RunDir
     from allpathslg_tpu.pipeline.stages import Pipeline
+    from allpathslg_tpu.utils import compile_cache
 
     over = {}
     for kv in args.overrides:
@@ -57,6 +58,7 @@ def main(argv=None):
     rd = RunDir(args.run_dir)
     log = prun._log_factory(rd)
     log(f"[scale] config: {cfg.to_json()}")
+    log(f"[scale] compile cache: {compile_cache.enable()}")
 
     t0 = time.perf_counter()
     if not rd.has("frag_reads_orig"):

@@ -1,4 +1,4 @@
-"""Perfect/Imperfect lookup (one-hot MXU scan) vs numpy oracle."""
+"""Perfect/Imperfect lookup (one-hot convolution scan) vs numpy oracle."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -43,3 +43,27 @@ def test_radix_large_keys_and_zero_bytes():
     order = np.argsort(keys, kind="stable")
     assert (ks == keys[order]).all()
     assert (ps == pay[order]).all()
+
+
+def test_concurrent_builds_do_not_collide(tmp_path, monkeypatch):
+    """Concurrent builders (test workers) each write a private temp file
+    and rename it into place; no temp file is left behind."""
+    import shutil
+    import threading
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ available")
+    shutil.copy(build.os.path.join(build._DIR, "radix_sort.cpp"), tmp_path)
+    monkeypatch.setattr(build, "_DIR", str(tmp_path))
+    out = []
+    ts = [threading.Thread(target=lambda: out.append(build._build(
+        "radix_sort"))) for _ in range(3)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in ts)
+    so = str(tmp_path / "radix_sort.so")
+    assert out == [so] * 3
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "radix_sort.cpp", "radix_sort.so"]
